@@ -1,6 +1,6 @@
 """Camera models: pinhole intrinsics, distortion, depth→color extrinsics.
 
-TPU-native equivalent of the reference's camera-model structs
+Equivalent of the reference's camera-model structs
 (reference: pointcloud_processing/include/pointcloud_processing/intrinsics.h:6-39)
 and the CameraInfo conversion (fusion_node/src/fusion_node.cpp:570-581).
 

@@ -1,6 +1,6 @@
 """Dense camera geometry: deprojection, projection, rigid transforms, SE(3).
 
-TPU-native replacements for the reference CUDA kernels
+Replacements for the reference CUDA kernels
 (pointcloud_processing/src/kernels.cu):
 
   * :func:`deproject` — kernel_deproject_depth (kernels.cu:183-221), but
@@ -96,8 +96,8 @@ def deproject(
       in downstream z-buffer mins (they are additionally masked explicitly).
 
     Replaces kernel_deproject_depth (kernels.cu:183-221); the reference's
-    compacted index gather becomes a dense compute + mask (the TPU-friendly
-    formulation — see SURVEY.md §7).
+    compacted index gather becomes a dense compute + mask (fixed shapes —
+    see SURVEY.md §7).
     """
     h, w = depth_m.shape
     u, v = pixel_grid(h, w, depth_m.dtype)
@@ -113,8 +113,8 @@ def deproject_planar(
 ) -> Tuple[Array, Array, Array, Array]:
     """Structure-of-arrays deprojection: returns (x, y, z, valid) planes.
 
-    Identical math to :func:`deproject` but keeps the lane dimension = image
-    width (no trailing xyz axis), which the TPU VPU vectorizes fully. Hot
+    Identical math to :func:`deproject` but keeps the minor dimension =
+    image width (no trailing stride-3 xyz axis). Hot
     paths (fusion/pipeline.py) use this; the (H, W, 3) variant remains for
     API convenience.
     """
@@ -184,13 +184,13 @@ def project_points(points: Array, intrinsics: Intrinsics) -> Tuple[Array, Array]
 # ---------------------------------------------------------------------------
 
 # Every matmul in this module is a tiny pose compose or an (N,3)×(3,3) point
-# transform. TPU matmuls default to bf16 operands, which injects ~5e-2
-# RELATIVE error into pose matrices (measured on v5e: 4×4 f32 matmul max rel
-# err 5.4e-2 at default precision, 4e-7 at HIGHEST) — pixel-scale projection
-# shifts and a diverging GICP solve, caught by the on-chip parity gate
-# (tpu_check.py). Full f32 is forced here; none of these ops are
-# throughput-relevant (the hot path's per-point transforms are elementwise
-# planes, transform_planar).
+# transform. On an NVIDIA GPU an f32 matmul at default precision may run on
+# the tensor cores in TF32 (10-bit mantissa, ~5e-4 relative error per
+# operand) — pixel-scale projection shifts and a drifting GICP solve in
+# pose math, which only the cross-backend parity gate (tpu_check.py) can
+# catch, because CPU tests ignore precision. Full f32 is forced here; none
+# of these ops are throughput-relevant (the hot path's per-point
+# transforms are elementwise planes, transform_planar).
 _F32 = jax.lax.Precision.HIGHEST
 
 
@@ -203,8 +203,8 @@ def transform_points(points: Array, transform: Array) -> Array:
     """Apply a 4×4 homogeneous transform to (..., 3) points.
 
     Equivalent to kernel_transform (kernels.cu:161-181) — one matmul instead
-    of per-point scalar arithmetic, so XLA maps it onto the MXU (at forced
-    f32 operand precision; see _F32 above).
+    of per-point scalar arithmetic (at forced f32 operand precision; see
+    _F32 above).
     """
     r = transform[:3, :3].astype(points.dtype)
     t = transform[:3, 3].astype(points.dtype)

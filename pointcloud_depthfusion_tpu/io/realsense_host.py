@@ -1,6 +1,6 @@
 """Live RealSense capture → TCP frameset stream (camera-host bridge).
 
-TPU hosts have no USB camera stack, so live capture runs on the machine the
+The fusion host need not have a USB camera stack, so live capture runs on the machine the
 sensor is plugged into (the reference's Jetson role, realsense.cpp:57-444)
 and streams framesets to the fusion host over `io/network.py`. This module
 is that bridge: it drives a RealSense through pyrealsense2 — device
@@ -14,7 +14,7 @@ dependency of this package — the import is guarded):
     python -m pointcloud_depthfusion_tpu.io.realsense_host \
         --name camera_left --port 7447 [--serial <S>] [--model D455]
 
-On the TPU host, consume with ``camera_node --source tcp://camerahost:7447``
+On the fusion host, consume with ``camera_node --source tcp://camerahost:7447``
 or a :class:`~pointcloud_depthfusion_tpu.io.network.NetworkSource`.
 """
 
@@ -51,7 +51,7 @@ def _require_rs2():
     except ImportError as exc:  # pragma: no cover - sensor-host only
         raise RuntimeError(
             "pyrealsense2 is not installed — this bridge runs on the "
-            "CAMERA host (with the RealSense SDK), not on the TPU host; "
+            "CAMERA host (with the RealSense SDK), not on the fusion host; "
             "install librealsense2 + pyrealsense2 there"
         ) from exc
     return rs

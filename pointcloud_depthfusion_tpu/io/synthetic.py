@@ -2,7 +2,7 @@
 RealSense capture.
 
 The reference requires two physical D455 cameras (camera_node/src/
-realsense.cpp); on TPU hosts the capture stack is replaced by synthetic or
+realsense.cpp); without sensors the capture stack is replaced by synthetic or
 recorded framesets (SURVEY.md §2.7 item 6). This module ray-casts a simple
 parametric scene (ground plane + spheres with a world-anchored color
 pattern) from arbitrary camera poses, yielding geometrically consistent

@@ -19,6 +19,8 @@ import numpy as np
 
 
 def main() -> None:
+    from pointcloud_depthfusion_tpu.fusion.pipeline import RENDER_MODES
+
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--frames", type=int, default=30)
     parser.add_argument("--width", type=int, default=424)
@@ -34,8 +36,7 @@ def main() -> None:
     parser.add_argument("--gif", type=str, default="",
                         help="write an animated GIF of the fused stream")
     parser.add_argument("--render-mode", default="",
-                        choices=["", "tiled", "exact", "indexed", "packed",
-                                 "pallas"],
+                        choices=["", *RENDER_MODES],
                         help="override the configured render mode")
     parser.add_argument("--async-readback", action="store_true", default=None,
                         help="overlap frame N's device->host copy with "
@@ -58,6 +59,12 @@ def main() -> None:
         jax.config.update("jax_platforms", "cpu")
 
     import dataclasses
+
+    from pointcloud_depthfusion_tpu.utils.compile_cache import (
+        enable_persistent_cache,
+    )
+
+    enable_persistent_cache()
 
     from pointcloud_depthfusion_tpu.core.camera import Intrinsics
     from pointcloud_depthfusion_tpu.io.feeder import (
@@ -141,11 +148,6 @@ def main() -> None:
     fusion_cfg = dataclasses.replace(fusion_cfg, vertical_image=args.vertical)
     if args.render_mode:
         fusion_cfg = dataclasses.replace(fusion_cfg, render_mode=args.render_mode)
-    elif args.cpu and fusion_cfg.render_mode == "tiled":
-        # The tiled kernel runs under the Pallas INTERPRETER off-TPU
-        # (~13× slower); "exact" is bit-identical output via XLA scatters
-        # and the right smoke-run default on CPU.
-        fusion_cfg = dataclasses.replace(fusion_cfg, render_mode="exact")
     # Streaming defaults (donate/async_readback/qos.lifespan_s) come from
     # the YAML tier; explicit CLI flags override.
     node_kwargs = factory.fusion_node_kwargs_from_tree(fusion_tree)

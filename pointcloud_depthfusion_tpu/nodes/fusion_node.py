@@ -121,12 +121,6 @@ class FusionNodeApp:
             )
             self.config = _dc.replace(self.config, align_footprint=bound)
 
-        # The pallas prep kernel takes u8 channel planes and never consumes
-        # Frameset.color_packed — packing would upload a dead +4 B/px plane
-        # every frame (the relay link runs ~40 MB/s; that is ~+40 ms/frame
-        # at 848×480). Every other exact-color mode consumes it.
-        if pack_color and self.config.render_mode == "pallas":
-            pack_color = False
         self.pipeline = FusionPipeline(self.intr_left, self.config, donate=donate)
         # Feed THROUGH the camera nodes (they are FramesetSources), not their
         # raw sources: capture() applies the rs2-equivalent temporal filter,

@@ -5,7 +5,7 @@ image_node/src/image_node.cpp:38-120) with all four of its callback kinds:
 fused color (fusedCallback), raw depth (depthCallback), full frameset —
 color + depth side by side with the 0.1 convertScaleAbs depth visualization
 (framesetCallback, image_node.cpp:75-95) — and the small preview image
-(imageSmallCallback). TPU hosts are headless, so the default sink writes
+(imageSmallCallback). Fusion hosts are often headless, so the default sink writes
 numbered PNGs to a directory; an interactive backend can be plugged in by
 passing a custom ``display`` callable.
 """
@@ -47,7 +47,7 @@ class OpenCVDisplay:
     reference calls ``rclcpp::shutdown`` there; here ImageNode fires its
     ``on_close`` hook). Plug into ImageNode via ``display=OpenCVDisplay()``.
 
-    Headless TPU hosts have no display server — construction is cheap and
+    Headless hosts have no display server — construction is cheap and
     lazy; the first ``__call__`` raises a clear RuntimeError if the GUI
     stack cannot open a window (keep the default PNG sink there).
     """

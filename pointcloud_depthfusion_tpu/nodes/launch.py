@@ -4,7 +4,7 @@ The reference stands up its distributed system from launch files that
 compose camera/fusion/registration/image nodes with YAML parameter
 overrides (camera_node/launch/camera_left.launch.py:19-28,
 fusion_node/launch/standalone.launch.py). This module is that capability
-for the TPU framework: ONE manifest describes every node of a deployment —
+for this framework: ONE manifest describes every node of a deployment —
 N camera sources (local synthetic, recorded ``.npz`` replays, or
 ``tcp://`` remote camera hosts), the fusion tier (dual-camera FusionNodeApp
 or N-camera RigFusionNodeApp), the registration service cadence, and the
@@ -48,7 +48,6 @@ per-adjacent-pair calibration sweeps).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 from typing import Optional
@@ -223,7 +222,11 @@ def run_deployment(manifest: dict, cpu: bool = False,
         jax.config.update("jax_platforms", "cpu")
 
     from pointcloud_depthfusion_tpu.nodes.image_node import ImageNode
-    from pointcloud_depthfusion_tpu.utils import factory
+    from pointcloud_depthfusion_tpu.utils.compile_cache import (
+        enable_persistent_cache,
+    )
+
+    enable_persistent_cache()
 
     width = int(manifest.get("width", 424))
     height = int(manifest.get("height", 240))
@@ -257,12 +260,12 @@ def run_deployment(manifest: dict, cpu: bool = False,
                              every_n=int(viewer_section.get("every_n", 8)))
 
         if len(cameras) == 2:
-            frames_done, reg_fitness = _run_dual(
+            frames_done, reg_ticks, reg_fitness = _run_dual(
                 cameras, fusion_section, reg_section, reg_every, sink,
-                fused, max_frames, cpu,
+                fused, max_frames,
             )
         else:
-            frames_done, reg_fitness = _run_rig(
+            frames_done, reg_ticks, reg_fitness = _run_rig(
                 cameras, fusion_section, reg_every, sink, fused,
                 max_frames,
             )
@@ -282,11 +285,13 @@ def run_deployment(manifest: dict, cpu: bool = False,
         "cameras": len(cameras),
         "tier": "dual" if len(cameras) == 2 else "rig",
         "frames": frames_done,
+        "published": len(fused),
         "wall_s": round(wall, 3),
         "fused_shape": list(fused[-1].shape) if fused else None,
         "fused_coverage": round(
             float((fused[-1].sum(-1) > 0).mean()), 3
         ) if fused else None,
+        "registration_ticks": reg_ticks,
         "registration_fitness": reg_fitness,
         "saved_pngs": sink.saved if sink else 0,
         "served_ports": [srv.port for srv in servers],
@@ -295,7 +300,7 @@ def run_deployment(manifest: dict, cpu: bool = False,
 
 
 def _run_dual(cameras, fusion_section, reg_section, reg_every, sink, fused,
-              max_frames, cpu):
+              max_frames):
     from pointcloud_depthfusion_tpu.nodes.fusion_node import FusionNodeApp
     from pointcloud_depthfusion_tpu.nodes.registration_node import (
         RegistrationNodeApp,
@@ -305,10 +310,6 @@ def _run_dual(cameras, fusion_section, reg_section, reg_every, sink, fused,
     fusion_cfg, fusion_tree = factory.fusion_config(
         fusion_section.get("config")
     )
-    if cpu and fusion_cfg.render_mode == "tiled":
-        # Off-TPU the tiled kernel runs under the Pallas interpreter
-        # (~13× slower); "exact" is bit-identical via XLA scatters.
-        fusion_cfg = dataclasses.replace(fusion_cfg, render_mode="exact")
     node_kwargs = factory.fusion_node_kwargs_from_tree(fusion_tree)
     fusion = FusionNodeApp(cameras[0], cameras[1], config=fusion_cfg,
                            **node_kwargs)
@@ -327,11 +328,12 @@ def _run_dual(cameras, fusion_section, reg_section, reg_every, sink, fused,
         )
         registration.subscribe_transform(fusion.on_transform)
 
-    done = 0
+    done = ticks = 0
     with fusion.feeder as feeder:
         for i, pair in enumerate(feeder):
             if registration is not None and i % reg_every == 0:
                 registration.tick()
+                ticks += 1
             fusion.process_pair(pair)
             done += 1
             if max_frames and done >= max_frames:
@@ -342,7 +344,7 @@ def _run_dual(cameras, fusion_section, reg_section, reg_every, sink, fused,
         registration.stop()
         if registration.pipeline.telemetry:
             fitness = float(registration.pipeline.telemetry[-1].fitness)
-    return done, fitness
+    return done, ticks, fitness
 
 
 def _run_rig(cameras, fusion_section, reg_every, sink, fused, max_frames):
@@ -353,10 +355,6 @@ def _run_rig(cameras, fusion_section, reg_every, sink, fused, max_frames):
     config = None
     if fusion_section.get("config"):
         config, _ = factory.fusion_config(fusion_section["config"])
-    # No CPU render-mode remap here: the rig paths alias "exact" back to
-    # the sorted-slab program (parallel/mesh._rig_render_mode), so off-TPU
-    # rigs always run the kernel under the Pallas interpreter — correct,
-    # just slow; keep manifests small for CPU smoke runs.
     # PER-CAMERA intrinsics: heterogeneous rigs (tcp:// remotes each hand
     # their own fx/ppx through the handshake) must not silently deproject
     # cameras 1..N-1 with camera 0's calibration.
@@ -380,7 +378,7 @@ def _run_rig(cameras, fusion_section, reg_every, sink, fused, max_frames):
     if sink is not None:
         app.subscribe_fused(lambda img, ts: sink(img, ts[0]))
     done = app.run(max_frames=max_frames or None)
-    return done, None
+    return done, app.registration_ticks, None
 
 
 def main() -> None:

@@ -90,9 +90,9 @@ class RigFusionNodeApp:
         self.config = config or FusionConfig.create(
             vertical_image=False, mirror_image=False,
             filter_fused_color=False,
-            # Image-only resolve on single-chip; the camera-sharded merge
-            # REQUIRES per-device min-z (rig_fuse_sharded raises on
-            # emit_zbuf=False rather than silently ignoring it).
+            # The camera-sharded merge REQUIRES per-device min-z
+            # (rig_fuse_sharded raises on emit_zbuf=False rather than
+            # silently ignoring it).
             emit_zbuf=mesh is not None,
         )
         self.intrinsics = intrinsics
@@ -386,6 +386,11 @@ def main() -> None:
         SyntheticScene,
         rig_arc_poses,
     )
+    from pointcloud_depthfusion_tpu.utils.compile_cache import (
+        enable_persistent_cache,
+    )
+
+    enable_persistent_cache()
 
     n = args.cameras
     w, h = args.width, args.height
@@ -400,7 +405,7 @@ def main() -> None:
                         depth_noise_std=0.002)
         for i in range(n)
     ]
-    mode = args.render_mode or ("exact" if args.cpu else "tiled")
+    mode = args.render_mode or "tiled"
     config = FusionConfig.create(
         vertical_image=False, mirror_image=False, filter_fused_color=False,
         emit_zbuf=False, render_mode=mode,

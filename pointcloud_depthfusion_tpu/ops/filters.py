@@ -1,4 +1,4 @@
-"""Dense image filters: the TPU-native NPP-filter-suite equivalent.
+"""Dense image filters: the NPP-filter-suite equivalent.
 
 Replaces the reference's NPP calls and depth-filter pipeline
 (pointcloud_processing/src/kernels.cu:353-540, :594-712, :749-779 and
@@ -74,8 +74,8 @@ def _clamped_roi(height: int, width: int, roi) -> Tuple[int, int, int, int]:
 def roi_mask_traced(height: int, width: int, roi) -> Array:
     """:func:`roi_mask` built from iota compares so it traces as cheap
     vector ops instead of an embedded (H, W) bool literal — use inside
-    jitted bodies that must not close over large constants (the rig paths;
-    CLAUDE.md round-3)."""
+    jitted bodies that must not close over large constants (the rig
+    paths)."""
     if roi is None:
         return jnp.ones((height, width), bool)
     x0, y0, rw, rh = _clamped_roi(height, width, roi)
@@ -206,7 +206,7 @@ def _interior_only(filtered: Array, original: Array, border: int) -> Array:
 
 def _median9_network(p):
     """Median of 9 arrays via the classic 19-exchange min/max network —
-    far cheaper on the VPU than a general sort of the stacked axis."""
+    far cheaper as elementwise work than a general sort of the stacked axis."""
     def s(a, b):
         return jnp.minimum(a, b), jnp.maximum(a, b)
 
@@ -288,8 +288,8 @@ def filter_color(color: Array, use_median: bool) -> Array:
     reference's ``use_median_filter`` switch (frameset.cpp filterColor →
     kernels.cu:594-653).
 
-    Runs channel-planar ((3, H, W) via vmap) so the TPU lane dimension is
-    the image width rather than the 3-channel axis.
+    Runs channel-planar ((3, H, W) via vmap) so the minor dimension is the
+    image width rather than the 3-channel axis.
     """
     planar = jnp.moveaxis(color, -1, 0)
     if use_median:
@@ -304,9 +304,7 @@ def filter_color_planar(r: Array, g: Array, b: Array, use_median: bool) -> Array
 
     Identical math (3×3 median / Gauss per channel) but avoids the
     (H, W, 3) ↔ (3, H, W) relayout round-trip and the vmap: channels stay
-    lane-major through the filter and are stacked to HWC exactly once —
-    measured ~1.5 ms cheaper per 848×480 frame on v5e than filtering an
-    HWC image.
+    width-major through the filter and are stacked to HWC exactly once.
     """
     if use_median:
         f = lambda c: median_filter(c, 1)  # noqa: E731
@@ -636,7 +634,7 @@ def filter_depth(
     Mirrors DepthFrame::filter (depth_frame.cpp:153-182); morphology is off
     by default, matching the disabled call site (depth_frame.cpp:175-178).
     Where the reference then compacts indices, we return the dense mask —
-    the TPU-native replacement for compactor.cuh (SURVEY.md §2.7 item 2).
+    the replacement for compactor.cuh (SURVEY.md §2.7 item 2).
 
     Returns (filtered_depth_u16, valid_mask).
     """

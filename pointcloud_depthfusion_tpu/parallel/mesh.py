@@ -1,10 +1,10 @@
 """Multi-chip scale-out: camera-parallel rig fusion over a device mesh.
 
 The reference scales by process replication over two Jetsons with DDS/UDP
-fan-in (SURVEY.md §2.8). The TPU-native design shards CAMERAS over mesh
-devices: each device filters/deprojects/renders its own camera's frameset
-into a local z-buffer, and the fused image is a z-buffer MERGE — an
-all-reduce **min** over the camera axis riding ICI:
+fan-in (SURVEY.md §2.8). Here CAMERAS are sharded over mesh devices: each
+device filters/deprojects/renders its own camera's frameset into a local
+z-buffer, and the fused image is a z-buffer MERGE — an all-reduce **min**
+over the camera axis:
 
     pmin(zbuf)  →  local winner mask  →  pmin(packed RGB of winners)
 
@@ -23,10 +23,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from pointcloud_depthfusion_tpu.core import geometry as G
@@ -99,7 +96,7 @@ class _RigCalibration:
         # precomputed device arrays the jitted rig functions close over —
         # closed-over arrays embed as program constants (slow compiles, no
         # persistent-cache hits; an 8-camera 720p rig would bake ~7.4 MB of
-        # bool masks into every rig executable). See CLAUDE.md round-3.
+        # bool masks into every rig executable).
         if rois is not None:
             self.rois = tuple(
                 None if r is None else tuple(int(v) for v in r)
@@ -266,10 +263,8 @@ def _packed_rig_body(
 
     def local_buffer(depth, color, depth_scale, cam_to_virtual,
                      cam_offset=None):
-        # Unroll the local-camera loop: vmap of this (purely elementwise)
-        # math measured 10× slower than the unrolled form on v5e (188 ms vs
-        # 19 ms at 4 cameras) — batched iota/transcendental lowering is
-        # poor. Camera count per device is small and static.
+        # The local-camera loop is unrolled: camera count per device is
+        # small and static.
         n_local = depth.shape[0]
         idxs, keys = [], []
         for i in range(n_local):
@@ -320,18 +315,16 @@ def _finish_planes(rp, gp, bp, config: FusionConfig):
     node filters the fused color before publishing (median|gauss 3×3,
     fusion_node.cpp:789 → kernels.cu:594-653), so the N-camera paths honor
     ``config.filter_fused_color`` exactly like the dual ``fuse()`` does.
-    Channel-planar in, (H, W, 3) u8 out (planes filter ~1.5 ms cheaper than
-    an HWC relayout on v5e — see F.filter_color_planar)."""
+    Channel-planar in, (H, W, 3) u8 out."""
     if config.filter_fused_color:
         return F.filter_color_planar(rp, gp, bp, config.use_median_filter)
     return jnp.stack([rp, gp, bp], axis=-1)
 
 
 def _rig_render_mode(config: FusionConfig) -> str:
-    """Resolve the rig render mode: 'exact' aliases to 'tiled' (identical
-    winner semantics — min f32 z, min-RGB tie-break — via the fast sorted
-    path); unsupported modes raise instead of silently degrading to the
-    lossy packed fold."""
+    """Resolve the rig render mode: 'exact' aliases to 'tiled' (the same
+    bit-exact render); unsupported modes raise instead of silently
+    degrading to the lossy packed fold."""
     mode = config.render_mode
     if mode == "exact":
         return "tiled"
@@ -348,71 +341,29 @@ def _tiled_rig_body(
     fused_intrinsics: Intrinsics,
     config: FusionConfig,
 ):
-    """Per-device rig body for the sort+resolve (bit-exact) render: every
-    local camera contributes (pixel, z-bits, RGB888) entry triples; ONE
-    1-key sort + Pallas tile resolve replaces the per-camera scatters.
-
-    The scatter is the rig scaling wall (~8.6 ns/update serial on v5e →
-    ~3.5 ms per added 848×480 camera); the sort is log-parallel (~1.1 ms at
-    2 cameras, ~2.6 ms at 4) and the resolve is vector work, so tiled rigs
-    scale far past the scatter floor AND are bit-exact (f32 z, RGB888).
+    """Per-device rig body for the bit-exact render: every local camera
+    contributes (pixel, z-bits, RGB888) entries, and ONE winner selection
+    over all of them (ops/render.resolve_winners) replaces per-camera
+    renders.
     """
-    from pointcloud_depthfusion_tpu.ops.pallas.zresolve_pallas import (
-        invalid_pixel_id,
-        zresolve_sorted_entries,
-        zresolve_sorted_streams,
-    )
-
     calib = (
         intrinsics if isinstance(intrinsics, _RigCalibration)
         else _RigCalibration(intrinsics)
     )
     n_px = fused_intrinsics.width * fused_intrinsics.height
-    maxi = jnp.int32(0x7FFFFFFF)
-    pad_px = invalid_pixel_id(n_px)
-
-    def entries_one(depth1, color1, scale1, t1, pix_offset=0, intr1=None,
-                    roi1=None):
-        d, valid = F.filter_depth(
-            depth1, scale1, config.min_depth, config.max_depth
-        )
-        if roi1 is not None:
-            valid = valid & roi1
-        x, y, z, valid = G.deproject_planar(
-            d.astype(jnp.float32) * scale1,
-            intr1 if intr1 is not None else calib.ref, valid
-        )
-        x, y, z = G.transform_planar(x, y, z, t1)
-        idx, zc, ok = R.compute_pixel_indices_planar(
-            x, y, z, valid, fused_intrinsics, config.mirror_image
-        )
-        okf = ok.reshape(-1)
-        pix = jnp.where(okf, idx.reshape(-1) + pix_offset, pad_px).astype(
-            jnp.int32
-        )
-        zbits = jnp.where(
-            okf,
-            jax.lax.bitcast_convert_type(
-                zc.astype(jnp.float32), jnp.int32
-            ).reshape(-1),
-            maxi,
-        )
-        rgb = jnp.where(okf, _rgb24_of(color1, depth1.ndim).reshape(-1), maxi)
-        return pix, zbits, rgb
 
     def entries_all(depth, color, depth_scale, cam_to_virtual,
-                    pix_offsets=None, per_stream=False, cam_offset=None):
+                    pix_offsets=None, cam_offset=None):
         """Hand-batched (N,H,W) prep: one elementwise chain for ALL local
         cameras instead of N unrolled copies.
 
-        vmap is NOT used — batched-iota lowering makes vmapped elementwise
-        pipelines ~10× slower on v5e; instead the shared (H, W) pixel grid
-        broadcasts against per-camera scalars ((N,1,1) windows, transform
-        components). Bit-identical to the per-camera chain (same f32 ops).
+        The shared (H, W) pixel grid broadcasts against per-camera scalars
+        ((N,1,1) windows, transform components). Bit-identical to the
+        per-camera chain (same f32 ops).
 
         ``pix_offsets``: optional (N,) i32 per-camera pixel offset — the
-        batched multi-stream path routes each stream into its own slice of
-        one flat output buffer this way.
+        batched rig routes each stream into its own slice of one flat
+        output buffer this way.
 
         ``cam_offset``: traced index of this shard's first camera on the
         global calibration axis (sharded heterogeneous rigs); None selects
@@ -459,79 +410,22 @@ def _tiled_rig_body(
         idx, zc, ok = R.compute_pixel_indices_planar(
             xo, yo, zo, valid, fused_intrinsics, config.mirror_image
         )
+        offset = 0
         if pix_offsets is not None:
-            idx = idx + pix_offsets.astype(jnp.int32)[:, None, None]
-        # per_stream=True keeps the (n_cameras, H·W) stream axis so the
-        # multi-stream resolve can sort each camera separately.
-        shape = (n_local, -1) if per_stream else (-1,)
-        okf = ok.reshape(shape)
-        pix = jnp.where(okf, idx.reshape(shape), pad_px).astype(jnp.int32)
-        zbits = jnp.where(
-            okf,
-            jax.lax.bitcast_convert_type(
-                zc.astype(f), jnp.int32
-            ).reshape(shape),
-            maxi,
+            offset = pix_offsets.astype(jnp.int32)[:, None, None]
+        return R.winner_entries(
+            idx, zc, ok, _rgb24_of(color, depth.ndim), offset
         )
-        rgb = jnp.where(
-            okf,
-            _rgb24_of(color, depth.ndim).reshape(shape),
-            maxi,
-        )
-        return pix, zbits, rgb
 
     def local_minbufs(depth, color, depth_scale, cam_to_virtual,
-                      multi_stream=False, cam_offset=None):
-        # multi_stream=True: per-camera sorts + the multi-stream slab
-        # resolve (zresolve_sorted_streams). MEASURED DEAD END as the rig
-        # default on v5e: lax.sort does scale super-linearly (3.26M 3-op =
-        # 5.25 ms vs 8×407k = 4.03 in one program), but the resolve then
-        # sweeps every pixel tile once PER STREAM — chunk granularity is
-        # per (stream, tile), so the 8-camera resolve does ~4× the compare
-        # +DMA work and the whole sort+resolve measured 20.5-25 ms against
-        # 11.6 ms single-stream (same entries, chunk 1024/512/256 all
-        # worse; concurrent per-stream DMA slots didn't close it). Kept as
-        # an option for geometries with far denser per-tile slabs.
-        n_local = depth.shape[0]
-        interp = jax.default_backend() == "cpu"
-        if multi_stream and n_local >= 2:
-            pix, zbits, rgb = entries_all(
-                depth, color, depth_scale, cam_to_virtual, per_stream=True,
-                cam_offset=cam_offset,
-            )
-            return zresolve_sorted_streams(
-                pix, zbits, rgb, n_px, interpret=interp
-            )
-        pix, zbits, rgb = entries_all(depth, color, depth_scale, cam_to_virtual,
-                                      cam_offset=cam_offset)
-        return zresolve_sorted_entries(
-            pix, zbits, rgb, n_px, interpret=interp
-        )
+                      cam_offset=None):
+        entries = entries_all(depth, color, depth_scale, cam_to_virtual,
+                              cam_offset=cam_offset)
+        return R.resolve_winners(*entries, n_px)
 
-    def local_winner_rgb(depth, color, depth_scale, cam_to_virtual,
-                         cam_offset=None):
-        """Image-only resolve for the N-camera rig (FusionConfig.emit_zbuf
-        False): 3-key sort + first-of-run mask + single-pass kernel
-        (zresolve_winner_rgb) — the resolve does about half the vector work
-        of the (minz, mrgb) kernel; the image is bit-identical. SINGLE-
-        DEVICE rigs only: the camera-sharded merge pmin's per-device minz
-        buffers over ICI (rig_fuse_sharded), which needs the z output."""
-        from pointcloud_depthfusion_tpu.ops.pallas.zresolve_pallas import (
-            zresolve_winner_rgb,
-        )
-
-        pix, zbits, rgb = entries_all(depth, color, depth_scale,
-                                      cam_to_virtual, cam_offset=cam_offset)
-        return zresolve_winner_rgb(
-            pix, zbits, rgb, n_px,
-            interpret=jax.default_backend() == "cpu",
-        )
-
-    def unpack(minz, mrgb):
-        # image-only callers pass minz=mrgb: coverage is then the RGB
-        # sentinel (valid packed RGB is 24-bit, MAXI unambiguous) — the
-        # parity tests assert the two coverage definitions agree.
-        covered = minz != maxi
+    def unpack(mrgb):
+        # Coverage is the RGB sentinel: valid packed RGB is 24-bit.
+        covered = mrgb != jnp.int32(R.NO_WINNER)
         h_f, w_f = fused_intrinsics.height, fused_intrinsics.width
         rp, gp, bp = R.decode_winner_planes(covered, mrgb)
         return _finish_planes(
@@ -539,7 +433,7 @@ def _tiled_rig_body(
             bp.reshape(h_f, w_f), config,
         )
 
-    return entries_one, entries_all, local_minbufs, unpack, local_winner_rgb
+    return entries_all, local_minbufs, unpack
 
 
 def rig_fuse(
@@ -548,16 +442,13 @@ def rig_fuse(
     config: FusionConfig,
     z_near: float = 0.25,
     z_far: float = 4.5,
-    multi_stream: bool = False,
     rois=None,
 ):
     """Single-device N-camera rig fusion (no mesh/collectives).
 
     Same math as :func:`rig_fuse_sharded` on one device, but compiled as a
-    plain jit — the SPMD-partitioned executable carries heavy overhead on
-    single-device backends (measured 300+ ms vs 19 ms for the identical
-    computation). Use this for 1-chip rigs; the sharded variant when the
-    camera axis actually spans devices.
+    plain jit, without the SPMD partitioner. Use this for one-device rigs;
+    the sharded variant when the camera axis actually spans devices.
 
     ``color`` accepts (N, H, W, 3) u8 HWC frames OR pre-packed (N, H, W)
     i32 rgb24 planes (Frameset.color_packed semantics — skips the
@@ -573,18 +464,9 @@ def rig_fuse(
     expected pre-aligned to color, as the reference's camera nodes deliver
     (rs2::align runs at capture, realsense.cpp:373-376).
 
-    ``render_mode`` "tiled" (or "exact", same winner semantics) selects the
-    bit-exact sort+resolve render (one sort for ALL cameras instead of
-    per-camera scatters — the path that scales past the v5e scatter floor);
+    ``render_mode`` "tiled" (or "exact", the same render) selects the
+    bit-exact render (one winner selection over ALL cameras' entries);
     "packed" the lossy (zq14|RGB666) single-scatter fold; other modes raise.
-
-    ``multi_stream=True`` sorts per camera and merges the sorted slabs in
-    the resolve kernel — measured SLOWER at the default geometry (see
-    _tiled_rig_body.local_minbufs), exposed for denser-slab workloads.
-
-    ``config.emit_zbuf=False`` (tiled, single-stream) selects the
-    image-only resolve — bit-identical image, ~half the resolve kernel's
-    vector work; use it when only the fused color topic is consumed.
 
     ``config.filter_fused_color``/``use_median_filter`` apply the
     reference's fused-image color filter (fusion_node.cpp:789) exactly
@@ -615,28 +497,16 @@ def rig_fuse(
         return checked
 
     if _rig_render_mode(config) == "tiled":
-        _, _, local_minbufs, unpack_t, local_winner = _tiled_rig_body(
+        _, local_minbufs, unpack_t = _tiled_rig_body(
             calib, fused_intrinsics, config
         )
 
-        if not config.emit_zbuf and not multi_stream:
-            # Image-only resolve (the fused z-buffer is never produced):
-            # bit-identical image at about half the resolve's vector work.
-
-            @jax.jit
-            def fn_imgonly(depth, color, depth_scale, cam_to_virtual):
-                mrgb = local_winner(depth, color, depth_scale, cam_to_virtual)
-                return unpack_t(mrgb, mrgb)
-
-            return _check_count(fn_imgonly)
-
         @jax.jit
         def fn_tiled(depth, color, depth_scale, cam_to_virtual):
-            minz, mrgb = local_minbufs(
-                depth, color, depth_scale, cam_to_virtual,
-                multi_stream=multi_stream,
+            _, mrgb = local_minbufs(
+                depth, color, depth_scale, cam_to_virtual
             )
-            return unpack_t(minz, mrgb)
+            return unpack_t(mrgb)
 
         return _check_count(fn_tiled)
 
@@ -670,10 +540,10 @@ def rig_fuse_sharded(
     Design: each device folds ALL its local cameras into one flat packed-key
     scatter (vmapping the scatter per camera lowers catastrophically —
     measured 20× slower), then a single ``pmin`` of the packed uint32 buffer
-    merges depth AND color across devices in one ICI collective.
+    merges depth AND color across devices in one collective.
 
     ``config.render_mode == "tiled"`` upgrades the per-device render to the
-    bit-exact sort+resolve path and the merge to TWO pmin collectives
+    bit-exact winner selection and the merge to TWO pmin collectives
     (exact f32 z-bits, then the RGB888 of z-winners — the deterministic
     min-RGB tie-break across devices, same semantics as single-chip).
 
@@ -714,25 +584,21 @@ def rig_fuse_sharded(
 
     if _rig_render_mode(config) == "tiled":
         if not config.emit_zbuf:
-            # No silent meaning change across paths: single-device rig_fuse
-            # honors emit_zbuf=False with the image-only resolve, but the
-            # camera-sharded merge is TWO pmin collectives over per-device
-            # (min-z, rgb-of-winner) buffers — the z output is what lets a
-            # device's winner lose to a closer camera on another device, so
-            # an image-only kernel cannot feed it. (A single-pmin packed
-            # z|rgb merge would need 31 z bits + 24 rgb bits > 32, and i64
-            # collectives are out with jax_enable_x64 off.) Callers must
-            # opt back into the z-emitting kernel explicitly.
+            # The camera-sharded merge is TWO pmin collectives over
+            # per-device (min-z, rgb-of-winner) buffers — the z output is
+            # what lets a device's winner lose to a closer camera on another
+            # device. (A single-pmin packed z|rgb merge would need 31 z bits
+            # + 24 rgb bits > 32, and i64 collectives are out with
+            # jax_enable_x64 off.) Refuse rather than silently ignore a
+            # request for no z-buffer.
             raise ValueError(
                 "rig_fuse_sharded(tiled) cannot honor emit_zbuf=False: the "
                 "cross-device merge pmins per-device min-z buffers. Use "
-                "emit_zbuf=True for sharded rigs (single-device rig_fuse "
-                "honors the image-only resolve)."
+                "emit_zbuf=True for sharded rigs."
             )
-        _, _, local_minbufs, unpack_t, _ = _tiled_rig_body(
+        _, local_minbufs, unpack_t = _tiled_rig_body(
             calib, fused_intrinsics, config
         )
-        maxi = jnp.int32(0x7FFFFFFF)
 
         def per_device_tiled(depth, color, depth_scale, cam_to_virtual):
             minz, mrgb = local_minbufs(
@@ -742,19 +608,15 @@ def rig_fuse_sharded(
             # Exact two-collective merge: global min z-bits, then min RGB
             # among the devices holding that winner depth.
             gz = jax.lax.pmin(minz, axis)
-            cand = jnp.where(minz == gz, mrgb, maxi)
+            cand = jnp.where(minz == gz, mrgb, R.NO_WINNER)
             grgb = jax.lax.pmin(cand, axis)
-            return unpack_t(gz, grgb)
+            return unpack_t(grgb)
 
         fn_t = shard_map(
             per_device_tiled,
             mesh=mesh,
             in_specs=(P(axis), P(axis), P(axis), P(axis)),
             out_specs=P(),
-            # pallas_call's out_shape carries no varying-mesh-axes info;
-            # without this the vma checker rejects any kernel under
-            # shard_map.
-            check_vma=False,
         )
         return _check_camera_axis(jax.jit(fn_t))
 
@@ -795,18 +657,16 @@ def batched_rig_fuse(
     ``cameras`` (every stream fuses the same physical rig — the traced
     calibration leaves tile across the batch).
 
-    vmapping the renderer would batch the scatter (slow); instead every
-    stream scatters into its own slice of ONE flat (B·H·W,) buffer by
-    offsetting pixel indices with ``b·H·W`` — a single scatter for the
+    Every stream scatters into its own slice of ONE flat (B·H·W,) buffer
+    by offsetting pixel indices with ``b·H·W`` — a single scatter for the
     whole batch, same trick as the camera fold.
 
     Returns ``fn(depth (B,C,H,W) u16, color (B,C,H,W,3) u8,
     depth_scale (B,C), cam_to_virtual (B,C,4,4)) -> (B, Hf, Wf, 3) u8``.
 
     ``config.render_mode == "tiled"``: the same buffer-slice trick feeds the
-    bit-exact sort+resolve render — ONE sort + one tile-resolve over all
-    B·C cameras' entries against a (B·H·W)-pixel output (the kernel's tile
-    grid just grows with B).
+    bit-exact render — ONE winner selection over all B·C cameras' entries
+    against a (B·H·W)-pixel output.
     """
     calib = _RigCalibration(intrinsics, rois)
     if calib.n_cameras is not None and calib.n_cameras != cameras:
@@ -822,14 +682,9 @@ def batched_rig_fuse(
     )  # (B·C,)
 
     if _rig_render_mode(config) == "tiled":
-        from pointcloud_depthfusion_tpu.ops.pallas.zresolve_pallas import (
-            zresolve_sorted_entries,
-        )
-
-        _, entries_all, _, _, _ = _tiled_rig_body(
+        entries_all, _, _ = _tiled_rig_body(
             calib, fused_intrinsics, config
         )
-        maxi = jnp.int32(0x7FFFFFFF)
         total_px = batch * n_px
 
         @jax.jit
@@ -850,11 +705,8 @@ def batched_rig_fuse(
                 cam_to_virtual.reshape(batch * cameras, 4, 4),
                 pix_offsets=stream_offsets,
             )
-            minz, mrgb = zresolve_sorted_entries(
-                p, z, rr, total_px,
-                interpret=jax.default_backend() == "cpu",
-            )
-            covered = minz != maxi
+            _, mrgb = R.resolve_winners(p, z, rr, total_px)
+            covered = mrgb != jnp.int32(R.NO_WINNER)
             rp, gp, bp = R.decode_winner_planes(covered, mrgb)
             return _finish_batch_planes(rp, gp, bp, config, batch, h_f, w_f)
 

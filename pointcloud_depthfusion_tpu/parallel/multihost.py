@@ -1,16 +1,16 @@
-"""Multi-host scale-out: camera rigs spanning TPU hosts.
+"""Multi-host scale-out: camera rigs spanning accelerator hosts.
 
 The reference spans two machines over DDS/UDP (README.md:14-34: one Jetson
-per camera, fusion subscribing over the network). The TPU-native equivalent
+per camera, fusion subscribing over the network). The equivalent here
 keeps the SAME sharded program as parallel/mesh.py — cameras sharded over a
 mesh, one ``pmin`` merge — but the mesh spans processes: `jax.distributed`
 coordinates the hosts, each process contributes its locally-attached
 cameras' framesets via ``jax.make_array_from_process_local_data``, and the
-collective rides ICI within a host / DCN between hosts (the SURVEY §2.8
-mapping: DCN only between hosts).
+collective rides the intra-host interconnect (NVLink) within a host and
+the network between hosts (the SURVEY §2.8 mapping).
 
-On real multi-host TPU pods this initializes from the default cluster
-environment. For development and CI the same code path runs as N CPU
+On a cluster whose environment JAX can detect, this initializes from
+it. For development and CI the same code path runs as N CPU
 processes with gloo collectives — ``python -m
 pointcloud_depthfusion_tpu.parallel.multihost --num-processes 2
 --process-id k`` launches one worker (see tests/test_multihost.py, which
@@ -33,7 +33,7 @@ def initialize_multihost(
 ) -> None:
     """Bring up the distributed runtime for a process-spanning mesh.
 
-    On a TPU pod slice, call with no arguments (cluster auto-detection).
+    On a cluster JAX can auto-detect, call with no arguments.
     For the CPU simulation, pass coordinator/num_processes/process_id and
     optionally ``local_virtual_devices`` to give each process N virtual
     CPU devices; CPU cross-process collectives use gloo.

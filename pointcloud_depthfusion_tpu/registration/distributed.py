@@ -2,7 +2,7 @@
 
 The reference runs registration as a dedicated machine in the pipeline
 (registration_node on smartmirror4-2, README.md:21-34) — one solver, one
-GPU. On a TPU pod slice the same service scales two idiomatic ways:
+GPU. On a multi-device mesh the same service scales two idiomatic ways:
 
 * :func:`gicp_register_sharded` — ONE solve whose source cloud is
   point-sharded over the mesh. Each device evaluates correspondences and
@@ -20,7 +20,8 @@ GPU. On a TPU pod slice the same service scales two idiomatic ways:
   N-1 (or N cyclic) adjacent pairs at once.
 
 Both run on any 1-D ``jax.sharding.Mesh`` (tested on the virtual 8-device
-CPU mesh; the driver's ``dryrun_multichip`` executes them every round).
+CPU mesh; ``__graft_entry__.dryrun_multichip`` and ``chip_smoke.py
+--four-cards`` execute them).
 """
 
 from __future__ import annotations
@@ -31,10 +32,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from pointcloud_depthfusion_tpu.ops import voxel as V
@@ -171,9 +169,6 @@ def gicp_register_batched(
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P()),
         out_specs=P(axis),
-        # the voxel-grid build runs a Pallas segment-sum; pallas_call's
-        # out_shape carries no varying-mesh-axes info.
-        check_vma=False,
     )
     return fn(
         source_points, source_valid, target_points, target_valid,

@@ -1,4 +1,4 @@
-"""Voxelized GICP: JAX-native rigid registration on TPU.
+"""Voxelized GICP: JAX-native rigid registration.
 
 Replaces the external FastGICP CUDA library (`fast_gicp::FastVGICPCuda`,
 registration.cpp:31-47) with a from-scratch distribution-to-distribution
@@ -50,9 +50,9 @@ class GICPConfig:
     # Relative fitness-plateau criterion: converged when |Δmse| <
     # fitness_rel_eps · mse. The reference's absolute 1e-12 threshold is an
     # f64 Eigen value; in f32 the mse jitters at ~1e-3 relative and the
-    # absolute test never fires, so warm solves on TPU burned the full
-    # iteration budget on sub-noise steps (measured 48 capped iterations at
-    # a 9.4e-5 plateau; warm converges in 3 with this at 5e-3). ≤0 disables
+    # absolute test never fires, so warm solves burned the full iteration
+    # budget on sub-noise steps (48 capped iterations at a 9.4e-5 plateau;
+    # warm converges in 3 with this at 5e-3). ≤0 disables
     # (the default): cold solves can stall for a few iterations before
     # improving, so the pipeline enables it only for warm post-annealing
     # ticks.
@@ -82,9 +82,8 @@ class GICPConfig:
     )
     # "planar": the Gauss-Newton iteration in structure-of-arrays form —
     # every (M,3,3)/(M,3,6) batched tensor replaced by component planes.
-    # TPU lays trailing (3,3) axes across 128-wide lanes at ~2% utilization
-    # (measured 1.5 ms/iteration at 2^15 slots); the plane form keeps the
-    # voxel axis on the lanes. "matrix": the original batched-tensor loop,
+    # Tiny trailing (3,3) axes make poor vector work; the plane form keeps
+    # the long voxel axis innermost. "matrix": the original batched-tensor loop,
     # kept as the readable oracle both are tested against.
     solver: str = dataclasses.field(default="planar", metadata=dict(static=True))
     # Correspondence model (fast_gicp NeighborSearchMethod analogue;
@@ -160,12 +159,31 @@ class GICPResult:
     num_correspondences: Array  # int32 (final iteration)
 
 
+def _loop_seed(transform: Array):
+    """Gauss-Newton carry seed: (transform, fitness=inf, done=False,
+    iterations=0, correspondences=0).
+
+    Under ``shard_map`` a loop carry must keep its varying mesh axes from
+    one iteration to the next. The solve's scalars vary exactly where the
+    initial transform does (one pair per device in the batched solve;
+    replicated in the point-sharded one), so the constant seeds take its
+    varying axes.
+    """
+    vma = tuple(jax.typeof(transform).vma)
+
+    def seed(value, dtype):
+        x = jnp.asarray(value, dtype)
+        return jax.lax.pcast(x, vma, to="varying") if vma else x
+
+    return (transform, seed(jnp.inf, jnp.float32), seed(False, jnp.bool_),
+            seed(0, jnp.int32), seed(0, jnp.int32))
+
+
 def _inv3x3(m: Array) -> Array:
     """Closed-form batched 3×3 inverse (adjugate / determinant).
 
-    jnp.linalg.inv on (M, 3, 3) lowers to a general LU path that is
-    catastrophically slow on TPU inside a scan; the cofactor form is pure
-    vector math.
+    jnp.linalg.inv on (M, 3, 3) lowers to a batched LU call per iteration
+    inside the scan; the cofactor form is pure elementwise math.
     """
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
@@ -242,9 +260,10 @@ def prepare_target(
     distributions and starve the solver of correspondences).
     """
     f = jnp.float32
-    # f32 matmul precision: TPU matmuls default to bf16 inputs; covariance
-    # products at bf16 add solver-step noise above the convergence epsilons
-    # (measured: warm solves burning the iteration cap).
+    # f32 matmul precision: accelerator matmuls may default to reduced-
+    # precision inputs (TF32 on NVIDIA tensor cores); covariance products
+    # at reduced precision add solver-step noise above the convergence
+    # epsilons (warm solves then burn the iteration cap).
     with jax.default_matmul_precision("float32"):
         tgt = target_points.reshape(-1, 3).astype(f)
         tval = target_valid.reshape(-1)
@@ -345,8 +364,7 @@ def _solve_planar(
     C = C_t + R C_s Rᵀ, its closed-form symmetric inverse W, and the
     Gauss-Newton normal equations H = Σ w JᵀWJ, g = Σ w JᵀWr with
     J = [-I | [Rp+t]×] are fully unrolled into plane arithmetic — no
-    (M,3,3) tensors survive into the loop body (their trailing 3×3 axes
-    map to TPU lanes at ~2% utilization and dominated the solve).
+    (M,3,3) tensors survive into the loop body.
 
     ``axis_name``: when set, the source planes are a SHARD of the cloud on
     a mesh axis of that name — every per-point reduction (the 27 normal-
@@ -354,7 +372,7 @@ def _solve_planar(
     a local sum + ``psum`` over the axis, so the GN state (transform,
     convergence flags) stays replicated while the cloud and all O(M) work
     are point-sharded across devices. The per-iteration collective payload
-    is 29 scalars — ICI-negligible.
+    is 29 scalars — negligible next to the per-point work.
     """
     f = jnp.float32
     sx, sy, sz = src_ds[:, 0], src_ds[:, 1], src_ds[:, 2]
@@ -557,13 +575,7 @@ def _solve_planar(
         done = done | newly_done | (n_corr == 0)
         return (new_transform, fitness, done, it_count, n_corr)
 
-    init = (
-        initial_transform.astype(f),
-        jnp.asarray(jnp.inf, f),
-        jnp.asarray(False),
-        jnp.asarray(0, jnp.int32),
-        jnp.asarray(0, jnp.int32),
-    )
+    init = _loop_seed(initial_transform.astype(f))
 
     def cond(carry):
         _, _, done, it_count, _ = carry
@@ -631,8 +643,7 @@ def pack_target_table(tgt_grid: V.VoxelGrid) -> Array:
     """Packed (T, 13) per-voxel lookup table, built ONCE per solve: the
     loop's correspondence lookup reads (count, mean, symmetric cov ×6,
     coords) with ONE row gather per iteration instead of the four separate
-    gathers in V.lookup_voxels (row gathers cost per row on v5e; saves
-    ~1 ms/iteration — dominant on annealing solves)."""
+    gathers in V.lookup_voxels."""
     f = jnp.float32
     cov6 = jnp.stack(
         [
@@ -711,7 +722,9 @@ def gicp_register_prepared(
             transform, prev_fitness, done, it_count, _ = carry
             r_mat = transform[:3, :3]
             t_vec = transform[:3, 3]
-            moved = src_ds @ r_mat.T + t_vec  # (M, 3)
+            # Precision pinned on every f32 product of this loop: a TF32
+            # product would move the oracle by more than its tolerances.
+            moved = G.mm(src_ds, r_mat.T) + t_vec  # (M, 3)
 
             mu, cov_t, found = lookup_packed(moved)
             resid = mu - moved  # (M, 3)
@@ -719,8 +732,8 @@ def gicp_register_prepared(
             corr = src_mask & found & (dist2 <= max_dist * max_dist)
 
             # Combined covariance C = C_t + R C_s Rᵀ; weight W = C⁻¹
-            # (closed-form — jnp.linalg.inv lowers to a slow LU on TPU).
-            cov_c = cov_t + r_mat @ src_cov @ r_mat.T  # batched (M,3,3)
+            # (closed form, see _inv3x3).
+            cov_c = cov_t + G.mm(G.mm(r_mat, src_cov), r_mat.T)  # batched (M,3,3)
             w_mat = _inv3x3(cov_c + 1e-6 * jnp.eye(3, dtype=f))
 
             # Optional RBF correspondence weighting (GPU_RBF_KERNEL analogue).
@@ -747,9 +760,9 @@ def gicp_register_prepared(
                 [-jnp.broadcast_to(jnp.eye(3, dtype=f), skew.shape), skew], axis=-1
             )  # (M, 3, 6)
 
-            wj = w_mat @ jac  # (M, 3, 6)
-            h = jnp.einsum("nij,nik,n->jk", jac, wj, wgt)
-            g = jnp.einsum("nij,ni,n->j", wj, resid, wgt)
+            wj = G.mm(w_mat, jac)  # (M, 3, 6)
+            h = jnp.einsum("nij,nik,n->jk", jac, wj, wgt, precision=jax.lax.Precision.HIGHEST)
+            g = jnp.einsum("nij,ni,n->j", wj, resid, wgt, precision=jax.lax.Precision.HIGHEST)
 
             delta_raw = -_solve_6x6(h, g, config.damping)
             # See the planar loop: a zeroed degenerate step must not pass
@@ -789,13 +802,7 @@ def gicp_register_prepared(
 
             return (new_transform, fitness, done, it_count, n_corr), None
 
-        init = (
-            initial_transform.astype(f),
-            jnp.asarray(jnp.inf, f),
-            jnp.asarray(False),
-            jnp.asarray(0, jnp.int32),
-            jnp.asarray(0, jnp.int32),
-        )
+        init = _loop_seed(initial_transform.astype(f))
         # while_loop instead of a fixed-length scan: converged solves stop
         # paying for the remaining iterations (the convergence epsilons are the
         # loop predicate — jit-safe dynamic trip count, no dynamic shapes).

@@ -1,12 +1,9 @@
 """Persistent XLA compilation cache setup.
 
-The fusion/registration programs compile in 10-50 s each on the TPU (the
-exact-mode render was 50 s in round 1, the GICP planar solver 46 s). The
-reference pays nothing comparable (nvcc compiles offline), so a cold
-container here used to pay minutes of compile across modes. Enabling JAX's
-persistent compilation cache makes every compile a once-per-container-image
-cost: subsequent processes (bench, nodes, tests on the same backend) hit the
-on-disk cache.
+The fusion and registration programs take seconds each to compile. JAX's
+persistent compilation cache makes that a once-per-cache cost: later
+processes (nodes, benches, tests on the same backend) load the compiled
+programs from disk.
 
 Call :func:`enable_persistent_cache` before the first jit compilation.
 """
@@ -15,29 +12,30 @@ from __future__ import annotations
 
 import os
 
+# Fixed, so that the cache key (which includes the path) stays the same
+# from one run to the next. Listed in .gitignore.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
-def enable_persistent_cache(path: str | None = None) -> str:
+
+def enable_persistent_cache() -> str:
     """Enable the JAX persistent compilation cache. Returns the cache dir.
 
-    Default location: ``$PDF_TPU_CACHE_DIR`` or ``~/.cache/pdf_tpu_xla``.
-    Safe to call more than once; only the first call's path sticks.
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX itself reads it and
+    this sets no directory. Otherwise the cache goes to ``.jax_cache`` at
+    the root of the checkout. Safe to call more than once.
     """
     import jax
 
-    path = path or os.environ.get(
-        "PDF_TPU_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "pdf_tpu_xla"),
-    )
-    try:
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = DEFAULT_CACHE_DIR
         os.makedirs(path, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", path)
-        # Cache every compilation that takes over a second — the hot-path
-        # programs are all well past this; tiny test jits stay out.
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        # Best-effort by contract: unwritable cache locations or older jax
-        # without these flags must never break the caller (the driver's
-        # entry() runs this unconditionally).
-        pass
+    # Cache every compilation that takes over a second — the hot-path
+    # programs are all well past this; tiny test jits stay out.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     return path

@@ -2,7 +2,7 @@
 
 The reference wires YAML → node parameters in its launch files
 (camera_node/launch/*.launch.py, README.md:116-120); these factories do the
-same for the TPU framework: load `configs/*_default.yaml` (+ optional
+same for this framework: load `configs/*_default.yaml` (+ optional
 override file) and build the corresponding pipeline objects.
 """
 

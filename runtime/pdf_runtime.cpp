@@ -1,6 +1,6 @@
 // pdf_runtime — native host-side runtime for pointcloud_depthfusion_tpu.
 //
-// TPU-native counterpart of the reference's C++ capture/transport runtime
+// Counterpart of the reference's C++ capture/transport runtime
 // (camera_node + DDS fabric): the device compute path is XLA; this library
 // covers the host hot paths around it:
 //

@@ -91,6 +91,22 @@ def project_zbuffer_oracle(points, colors, valid, fx, fy, ppx, ppy, width, heigh
     return img, zbuf
 
 
+def winner_oracle(pix, zbits, rgb, n_px):
+    """Sequential per-pixel winner of (pixel, z-bits, rgb24) entries: the
+    least (z-bits, rgb) pair; entries outside [0, n_px) are dropped.
+    Returns (minz, mrgb) int64 arrays, 0x7FFFFFFF where nothing landed."""
+    none = 0x7FFFFFFF
+    minz = np.full(n_px, none, np.int64)
+    mrgb = np.full(n_px, none, np.int64)
+    for p, z, c in zip(np.asarray(pix).ravel(), np.asarray(zbits).ravel(),
+                       np.asarray(rgb).ravel()):
+        if not 0 <= p < n_px:
+            continue
+        if (z, c) < (minz[p], mrgb[p]):
+            minz[p], mrgb[p] = z, c
+    return minz, mrgb
+
+
 # --- filters ----------------------------------------------------------------
 
 

@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from pointcloud_depthfusion_tpu.core.camera import Extrinsics, Intrinsics
 from pointcloud_depthfusion_tpu.ops.align import align_depth_to_color
@@ -70,15 +71,14 @@ def test_align_zero_depth_is_zero():
 
 
 def test_align_sorted_and_binned_bit_identical(rng):
-    """The sort+Pallas resolves (direct K²-entry and class-binned stencil)
-    must match the scatter path bit-for-bit."""
+    """The class-binned stencil must match the scatter path bit-for-bit."""
     d_intr, c_intr, ext, rot = setup_cams()
     depth = rng.integers(400, 3000, (24, 32)).astype(np.uint16)
     depth[rng.random((24, 32)) < 0.2] = 0
     a = align_depth_to_color(
         jnp.asarray(depth), 0.001, d_intr, c_intr, ext, method="scatter"
     )
-    for method in ("sorted", "binned"):
+    for method in ("binned",):
         b = align_depth_to_color(
             jnp.asarray(depth), 0.001, d_intr, c_intr, ext, method=method
         )
@@ -116,7 +116,7 @@ def test_saturated_depth_maps_to_zero_all_methods():
         jnp.asarray(depth), 0.001, d_intr, c_intr, ext, method="scatter"
     )
     assert int(np.asarray(a).sum()) == 0
-    for method in ("sorted", "binned"):
+    for method in ("binned",):
         b = align_depth_to_color(
             jnp.asarray(depth), 0.001, d_intr, c_intr, ext, method=method
         )
@@ -136,3 +136,14 @@ def test_auto_footprint_extrinsics_inflation():
     b_far = auto_footprint(d, c, far, min_depth=0.2)
     assert b_near == 3
     assert b_far > b_near  # 0.2/(0.2-0.08) = 1.67x perspective inflation
+
+
+@pytest.mark.parametrize("method", ["sorted", "bogus"])
+def test_align_rejects_unknown_method(method, rng):
+    """Only the two plain methods exist; anything else (including the
+    removed sort-based one) is an error, not a silent fallback."""
+    d_intr, c_intr, ext, _ = setup_cams()
+    depth = rng.integers(400, 3000, (24, 32)).astype(np.uint16)
+    with pytest.raises(ValueError, match="unknown align method"):
+        align_depth_to_color(jnp.asarray(depth), 0.001, d_intr, c_intr, ext,
+                             method=method)

@@ -205,7 +205,7 @@ def test_process_profiled_matches_fused_and_times_stages(tmp_path):
 
 
 def test_fusion_node_stage_log_has_real_numbers(tmp_path):
-    """VERDICT #4 acceptance: StageLog rows carry nonzero
+    """StageLog rows carry nonzero
     filter/deproject/project/copy fields."""
     import numpy as np
 
@@ -348,3 +348,35 @@ def test_feeder_pack_color_flag():
             np.asarray(pair.left.color_packed),
             pack_rgb24_host(np.asarray(pair.left.color)),
         )
+
+
+def test_fuse_rejects_unknown_render_mode():
+    """A manifest naming a removed mode (the hand-tiled "pallas" prep)
+    fails loudly instead of rendering with another mode."""
+    import dataclasses
+
+    import pytest
+
+    left, right, t_rl, intr, _, _ = make_pair()
+    config = dataclasses.replace(
+        FusionConfig.create(vertical_image=False, mirror_image=False),
+        render_mode="pallas",
+    )
+    with pytest.raises(ValueError, match="unknown render_mode 'pallas'"):
+        fuse(left, right, jnp.asarray(t_rl, jnp.float32), config, intr)
+
+
+def test_fuse_emit_zbuf_false_bit_identical_image():
+    """fuse(emit_zbuf=False) produces the identical image and zbuf=None."""
+    import dataclasses
+
+    left, right, t_rl, intr, _, _ = make_pair()
+    t_rl = jnp.asarray(t_rl, jnp.float32)
+    cfg = FusionConfig.create(render_mode="tiled")
+    fi = fused_virtual_intrinsics(intr, cfg.vertical_image)
+    full = fuse(left, right, t_rl, cfg, fi)
+    fast = fuse(left, right, t_rl,
+                dataclasses.replace(cfg, emit_zbuf=False), fi)
+    np.testing.assert_array_equal(np.asarray(fast.image),
+                                  np.asarray(full.image))
+    assert fast.zbuf is None and full.zbuf is not None

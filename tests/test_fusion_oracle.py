@@ -159,7 +159,7 @@ def test_indexed_mode_within_fidelity_envelope():
 
 
 def test_tiled_mode_bitwise_equals_exact_end_to_end():
-    """The tiled (sort + Pallas resolve) mode is bit-identical to the exact
+    """The tiled mode is bit-identical to the exact
     mode through the whole fuse() pipeline — winners, tie-breaks, colors,
     and f32 z-buffer."""
     import dataclasses

@@ -86,10 +86,7 @@ def test_point_sharded_is_actually_sharded():
         prep_source,
         prepare_target,
     )
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     target = oracles.make_bunny_like_cloud(1024)

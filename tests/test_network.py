@@ -155,7 +155,7 @@ def test_server_reaccepts_after_disconnect():
 
 def test_realsense_bridge_guarded_absent():
     """The live-sensor bridge degrades with a clear error on hosts without
-    pyrealsense2 (TPU hosts) instead of failing at import time."""
+    pyrealsense2 (fusion hosts) instead of failing at import time."""
     import pytest
 
     from pointcloud_depthfusion_tpu.io import realsense_host

@@ -45,19 +45,16 @@ def test_camera_node_capture_and_service():
 
 
 def test_fusion_node_pack_color_gated_by_render_mode():
-    """pack_color is dropped for the pallas render mode (its prep kernel
-    takes u8 channel planes and never consumes Frameset.color_packed —
-    packing would upload a dead +4 B/px plane every frame) and honored by
-    the exact-color modes."""
+    """Every render mode consumes Frameset.color_packed, so pack_color is
+    honored whatever the mode."""
+    from pointcloud_depthfusion_tpu.fusion.pipeline import RENDER_MODES
+
     cam_l, cam_r, _ = make_rig()
-    cfg = FusionConfig.create(vertical_image=False, mirror_image=False,
-                              filter_fused_color=False, render_mode="pallas")
-    app = FusionNodeApp(cam_l, cam_r, config=cfg, pack_color=True)
-    assert app.feeder.pack_color is False
-    cfg2 = FusionConfig.create(vertical_image=False, mirror_image=False,
-                               filter_fused_color=False, render_mode="tiled")
-    app2 = FusionNodeApp(cam_l, cam_r, config=cfg2, pack_color=True)
-    assert app2.feeder.pack_color is True
+    for mode in RENDER_MODES:
+        cfg = FusionConfig.create(vertical_image=False, mirror_image=False,
+                                  filter_fused_color=False, render_mode=mode)
+        app = FusionNodeApp(cam_l, cam_r, config=cfg, pack_color=True)
+        assert app.feeder.pack_color is True, mode
 
 
 def test_camera_node_temporal_filter_applies():

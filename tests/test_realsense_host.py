@@ -1,7 +1,7 @@
 """Live-capture bridge (io/realsense_host.py) executed against a faithful
 pyrealsense2 mock (tests/mock_pyrealsense2.py).
 
-pyrealsense2 never exists on a TPU host, so without these tests the ONLY
+pyrealsense2 is absent on the fusion host, so without these tests the ONLY
 coverage of the reference's capture behavior (realsense.cpp:57-444) would
 be code review. The mock reproduces the SDK semantics the bridge depends
 on — discovery by serial, config resolution at pipeline.start, hardware
@@ -166,7 +166,7 @@ def test_timeout_raises_instead_of_silent_eos():
 def test_bridge_serves_over_tcp_to_network_source():
     """Full camera-host bridge: RealsenseSource → FramesetStreamServer →
     NetworkSource round trip, bit-exact depth/color (the deployment split
-    the module exists for: sensor host streams, TPU host consumes)."""
+    the module exists for: sensor host streams, fusion host consumes)."""
     from pointcloud_depthfusion_tpu.io.network import (
         FramesetStreamServer,
         NetworkSource,

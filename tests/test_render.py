@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from pointcloud_depthfusion_tpu.core.camera import Intrinsics
 from pointcloud_depthfusion_tpu.ops import render as R
@@ -201,8 +202,8 @@ def test_packed_variant_close_to_exact(rng):
 
 
 def test_tiled_matches_exact_bitwise(rng):
-    """Sorted-slab Pallas render == scatter/sort exact render, bit for bit
-    (same winners, same min-RGB tie-break, exact f32 z)."""
+    """Planar render == (N, 3) render, bit for bit (same winners, same
+    min-RGB tie-break, exact f32 z)."""
     intr = make_intr()
     pts, cols, valid = random_cloud(rng, 5000, intr)
     for mirror in (False, True):
@@ -210,47 +211,46 @@ def test_tiled_matches_exact_bitwise(rng):
             jnp.asarray(pts), jnp.asarray(cols), jnp.asarray(valid), intr,
             mirror=mirror,
         )
-        img_t, zb_t = R.project_zbuffer_tiled_planar(
+        img_t, zb_t = R.project_zbuffer_planar(
             jnp.asarray(pts[:, 0]), jnp.asarray(pts[:, 1]),
             jnp.asarray(pts[:, 2]),
             jnp.asarray(cols[:, 0]), jnp.asarray(cols[:, 1]),
             jnp.asarray(cols[:, 2]),
-            jnp.asarray(valid), intr, mirror=mirror, interpret=True,
+            jnp.asarray(valid), intr, mirror=mirror,
         )
         np.testing.assert_array_equal(np.asarray(img_m), np.asarray(img_t))
         np.testing.assert_array_equal(np.asarray(zb_m), np.asarray(zb_t))
 
 
 def test_tiled_duplicate_depths_and_empty(rng):
-    """Tie-break determinism + empty image through the tiled path, with a
-    pixel count that does not divide the tile size (padding path)."""
-    intr = make_intr(w=37, h=23)  # 851 px: forces tile/chunk padding
+    """Tie-break determinism + empty image through the planar path, with an
+    odd pixel count."""
+    intr = make_intr(w=37, h=23)
     pts, cols, valid = random_cloud(rng, 3000, intr)
     pts[1000:2000] = pts[:1000]  # duplicate positions, different colors
     img_a, zb_a = R.project_zbuffer(
         jnp.asarray(pts), jnp.asarray(cols), jnp.asarray(valid), intr
     )
-    img_t, zb_t = R.project_zbuffer_tiled_planar(
+    img_t, zb_t = R.project_zbuffer_planar(
         jnp.asarray(pts[:, 0]), jnp.asarray(pts[:, 1]), jnp.asarray(pts[:, 2]),
         jnp.asarray(cols[:, 0]), jnp.asarray(cols[:, 1]), jnp.asarray(cols[:, 2]),
-        jnp.asarray(valid), intr, interpret=True,
+        jnp.asarray(valid), intr,
     )
     np.testing.assert_array_equal(np.asarray(img_a), np.asarray(img_t))
     np.testing.assert_array_equal(np.asarray(zb_a), np.asarray(zb_t))
 
     none_valid = jnp.zeros((3000,), bool)
-    img_e, zb_e = R.project_zbuffer_tiled_planar(
+    img_e, zb_e = R.project_zbuffer_planar(
         jnp.asarray(pts[:, 0]), jnp.asarray(pts[:, 1]), jnp.asarray(pts[:, 2]),
         jnp.asarray(cols[:, 0]), jnp.asarray(cols[:, 1]), jnp.asarray(cols[:, 2]),
-        none_valid, intr, interpret=True,
+        none_valid, intr,
     )
     assert np.all(np.asarray(img_e) == 0)
     assert np.all(np.asarray(zb_e) == np.finfo(np.float32).max)
 
 
 def test_tiled_extreme_skew_all_points_one_pixel(rng):
-    """Pathological skew: every point projects to the same pixel — the
-    dynamic chunk loop must walk the whole slab for that one tile."""
+    """Pathological skew: every point projects to the same pixel."""
     intr = make_intr(w=16, h=16)
     n = 4000
     z = rng.uniform(0.5, 3.0, n).astype(np.float32)
@@ -263,10 +263,10 @@ def test_tiled_extreme_skew_all_points_one_pixel(rng):
     img_a, zb_a = R.project_zbuffer(
         jnp.asarray(pts), jnp.asarray(cols), jnp.asarray(valid), intr
     )
-    img_t, zb_t = R.project_zbuffer_tiled_planar(
+    img_t, zb_t = R.project_zbuffer_planar(
         jnp.asarray(pts[:, 0]), jnp.asarray(pts[:, 1]), jnp.asarray(pts[:, 2]),
         jnp.asarray(cols[:, 0]), jnp.asarray(cols[:, 1]), jnp.asarray(cols[:, 2]),
-        jnp.asarray(valid), intr, interpret=True,
+        jnp.asarray(valid), intr,
     )
     np.testing.assert_array_equal(np.asarray(img_a), np.asarray(img_t))
     np.testing.assert_array_equal(np.asarray(zb_a), np.asarray(zb_t))
@@ -274,16 +274,16 @@ def test_tiled_extreme_skew_all_points_one_pixel(rng):
 
 
 def test_tiled_tiny_image_single_tile(rng):
-    """Image smaller than one tile (n_px < tile_px): single padded tile."""
+    """Tiny image (48 pixels)."""
     intr = make_intr(w=8, h=6)
     pts, cols, valid = random_cloud(rng, 500, intr)
     img_a, zb_a = R.project_zbuffer(
         jnp.asarray(pts), jnp.asarray(cols), jnp.asarray(valid), intr
     )
-    img_t, zb_t = R.project_zbuffer_tiled_planar(
+    img_t, zb_t = R.project_zbuffer_planar(
         jnp.asarray(pts[:, 0]), jnp.asarray(pts[:, 1]), jnp.asarray(pts[:, 2]),
         jnp.asarray(cols[:, 0]), jnp.asarray(cols[:, 1]), jnp.asarray(cols[:, 2]),
-        jnp.asarray(valid), intr, interpret=True,
+        jnp.asarray(valid), intr,
     )
     np.testing.assert_array_equal(np.asarray(img_a), np.asarray(img_t))
     np.testing.assert_array_equal(np.asarray(zb_a), np.asarray(zb_t))
@@ -332,3 +332,117 @@ def test_packed_white_point_at_far_plane_not_dropped():
     img = np.asarray(img)
     assert img[4, 4].tolist() == [255, 255, 255], img[4, 4]
     assert np.asarray(zbuf)[4, 4] < 1e30  # covered, not FLT_MAX
+
+
+def _winner_case(case, rng):
+    """(pix, zbits, rgb, n_px) entry sets for the winner-selection cases."""
+    n_px = 97
+    n = 1031  # not a multiple of any block or chunk size
+    pix = rng.integers(0, n_px, n)
+    zbits = rng.integers(0x3E800000, 0x40A00000, n)  # f32 bits of 0.25..5 m
+    rgb = rng.integers(0, 1 << 24, n)
+    if case == "ties":
+        zbits = np.full(n, 0x3F800000)  # every entry at 1.0 m
+    elif case == "empty":
+        pix = np.full(n, R._DROP)
+    elif case == "one_pixel":
+        pix = np.full(n, 5)
+    elif case == "tiny_image":
+        n_px = 3
+        pix = rng.integers(0, n_px, n)
+    elif case == "invalid_ids":
+        bad = rng.random(n) < 0.3
+        pix = np.where(bad, rng.integers(n_px, 1 << 31, n), pix)
+    elif case == "rig_offsets":
+        # 3 cameras x 4x5 images through winner_entries with per-camera
+        # pixel offsets into one flat output of 3 slices.
+        h, w, cams = 4, 5, 3
+        idx = rng.integers(0, h * w + 1, (cams, h, w))  # h*w = dump slot
+        ok = (idx < h * w) & (rng.random((cams, h, w)) < 0.9)
+        zc = rng.uniform(0.3, 4.0, (cams, h, w)).astype(np.float32)
+        zc[:, 0, :2] = 1.5  # cross-camera depth ties
+        rgb24 = rng.integers(0, 1 << 24, (cams, h, w))
+        offsets = (np.arange(cams) * h * w)[:, None, None]
+        pix, zbits, rgb = R.winner_entries(
+            jnp.asarray(idx, jnp.int32), jnp.asarray(zc), jnp.asarray(ok),
+            jnp.asarray(rgb24, jnp.int32), jnp.asarray(offsets, jnp.int32),
+        )
+        return np.asarray(pix), np.asarray(zbits), np.asarray(rgb), cams * h * w
+    return (pix.astype(np.int32), zbits.astype(np.int32), rgb.astype(np.int32),
+            n_px)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "empty", "one_pixel",
+                                  "tiny_image", "invalid_ids", "rig_offsets"])
+def test_resolve_winners_matches_oracle(case, rng):
+    """Winner selection against the sequential oracle: min depth, depth
+    ties to the least packed RGB, dropped entries land nowhere."""
+    pix, zbits, rgb, n_px = _winner_case(case, rng)
+    minz, mrgb = R.resolve_winners(jnp.asarray(pix), jnp.asarray(zbits),
+                                   jnp.asarray(rgb), n_px)
+    want_z, want_rgb = oracles.winner_oracle(pix, zbits, rgb, n_px)
+    np.testing.assert_array_equal(np.asarray(minz), want_z)
+    np.testing.assert_array_equal(np.asarray(mrgb), want_rgb)
+    if case == "empty":
+        assert np.all(np.asarray(mrgb) == R.NO_WINNER)
+
+
+def test_winner_entries_masks_invalid_points():
+    """Invalid points become dropped entries with no-winner keys; valid
+    ones carry the f32 depth bits and the packed colour."""
+    idx = jnp.asarray([[3, 7]], jnp.int32)
+    zc = jnp.asarray([[1.0, 2.0]], jnp.float32)
+    ok = jnp.asarray([[True, False]])
+    rgb24 = jnp.asarray([[0x123456, 0x654321]], jnp.int32)
+    pix, zbits, rgb = (np.asarray(a) for a in R.winner_entries(idx, zc, ok,
+                                                               rgb24, 10))
+    assert pix.tolist() == [13, R._DROP]
+    assert zbits.tolist() == [0x3F800000, R.NO_WINNER]
+    assert rgb.tolist() == [0x123456, R.NO_WINNER]
+
+
+@pytest.mark.parametrize("variant", ["image_only", "planes", "rgb24"])
+def test_planar_render_wrapper_variants(variant, rng):
+    """need_zbuf=False, return_planes and a pre-packed rgb24 plane change
+    only the form of the output, never a pixel."""
+    intr = make_intr()
+    pts, cols, valid = random_cloud(rng, 3000, intr)
+    planes = [jnp.asarray(pts[:, i]) for i in range(3)]
+    chans = [jnp.asarray(cols[:, i]) for i in range(3)]
+    img, zbuf = R.project_zbuffer_planar(*planes, *chans, jnp.asarray(valid),
+                                         intr)
+    if variant == "image_only":
+        img2, zb2 = R.project_zbuffer_planar(
+            *planes, *chans, jnp.asarray(valid), intr, need_zbuf=False)
+        assert zb2 is None
+    elif variant == "planes":
+        (rp, gp, bp), zb2 = R.project_zbuffer_planar(
+            *planes, *chans, jnp.asarray(valid), intr, return_planes=True)
+        assert rp.shape == (intr.height, intr.width)
+        img2 = jnp.stack([rp, gp, bp], -1)
+        np.testing.assert_array_equal(np.asarray(zb2), np.asarray(zbuf))
+    else:
+        rgb24 = R.pack_rgb(jnp.asarray(cols))
+        img2, zb2 = R.project_zbuffer_planar(
+            *planes, None, None, None, jnp.asarray(valid), intr, rgb24=rgb24)
+        np.testing.assert_array_equal(np.asarray(zb2), np.asarray(zbuf))
+    assert img2.shape == (intr.height, intr.width, 3)
+    np.testing.assert_array_equal(np.asarray(img2), np.asarray(img))
+
+
+@pytest.mark.gpu
+def test_render_on_gpu_matches_oracle(gpu_device, rng):
+    """The render as compiled for the card against the sequential oracle."""
+    import jax
+
+    intr = make_intr()
+    pts, cols, valid = random_cloud(rng, 5000, intr)
+    args = [jax.device_put(jnp.asarray(a), gpu_device)
+            for a in (pts, cols, valid)]
+    img, _ = R.project_zbuffer(*args, intr)
+    want_img, _ = oracles.project_zbuffer_oracle(
+        pts, cols, valid,
+        float(intr.fx), float(intr.fy), float(intr.ppx), float(intr.ppy),
+        intr.width, intr.height,
+    )
+    np.testing.assert_array_equal(np.asarray(img), want_img)

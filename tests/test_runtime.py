@@ -161,10 +161,33 @@ def test_load_library_probe_does_not_latch_failure(monkeypatch):
     assert bindings._lib_failed is False  # retry latch untouched
 
 
+_BUDGET_PROBE = """
+import time
+import numpy as np
+from pointcloud_depthfusion_tpu import runtime as rt
+from pointcloud_depthfusion_tpu.ops.host_filters import _spatial_filter_numpy
+d = np.random.default_rng(0).integers(300, 3000, (480, 848)).astype(np.uint16)
+rt.spatial_filter_native(d)  # warm
+def cpu_ms(fn):
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.process_time()
+        fn(d)
+        best = min(best, (time.process_time() - t0) * 1e3)
+    return best
+print(cpu_ms(rt.spatial_filter_native), cpu_ms(_spatial_filter_numpy))
+"""
+
+
 def test_native_spatial_filter_meets_capture_budget():
     """The capture-path reason the native version exists: 848x480 spatial
-    filtering must fit the 33 ms frame budget (numpy needs ~130 ms)."""
-    import time
+    filtering must be several times cheaper than numpy (~130 ms) to fit
+    the 33 ms frame budget. Compared in CPU time with one OpenMP thread,
+    in a child process, so that other test workers holding the cores
+    change neither number."""
+    import os
+    import subprocess
+    import sys
 
     import pytest
 
@@ -172,21 +195,11 @@ def test_native_spatial_filter_meets_capture_budget():
 
     if not rt.has_native_filters():
         pytest.skip("native runtime not built")
-    from pointcloud_depthfusion_tpu.ops.host_filters import (
-        _spatial_filter_numpy,
-    )
-
-    d = np.random.default_rng(0).integers(300, 3000, (480, 848)).astype(np.uint16)
-    rt.spatial_filter_native(d)  # warm
-    t0 = time.perf_counter()
-    for _ in range(5):
-        rt.spatial_filter_native(d)
-    ms = (time.perf_counter() - t0) * 1e3 / 5
-    t0 = time.perf_counter()
-    _spatial_filter_numpy(d)
-    numpy_ms = (time.perf_counter() - t0) * 1e3
-    # Relative bound: wall-clock absolutes flake on loaded CI hosts; the
-    # native filter's contract is "several x faster than numpy".
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "JAX_PLATFORMS": "cpu"}
+    r = subprocess.run([sys.executable, "-c", _BUDGET_PROBE], env=env,
+                       capture_output=True, text=True, timeout=120,
+                       check=True)
+    ms, numpy_ms = (float(v) for v in r.stdout.split()[-2:])
     assert ms < 0.5 * numpy_ms, (ms, numpy_ms)
 
 

@@ -1,6 +1,6 @@
-"""tools/stream_bench.py smoke: the STREAM artifact generator must keep
+"""tools/stream_bench.py smoke: the streaming measurement must keep
 producing parseable rows for every mode (it backs the BASELINE 30 FPS
-claim; a silent CLI regression would strand the next round's artifact)."""
+row; a silent CLI regression would strand the next measurement)."""
 
 import json
 import os
@@ -24,21 +24,18 @@ def _run(*extra):
 
 
 def test_dual_machinery_fence_row():
-    out = _run("--device-resident", "3", "--readback", "fence",
-               "--bench-ms", "3.2")
+    out = _run("--device-resident", "3", "--readback", "fence")
     assert out["metric"] == "streaming_fps_dual_128x96_machinery"
     assert out["readback"] == "fence"
     assert out["frames_measured"] == 10
-    ex = out["device_attached_extrapolation"]
-    assert ex["compute_ms_bench_chained"] == 3.2
-    assert ex["est_frame_ms"] >= 3.2  # max(transfer, compute, machinery)
+    assert out["payload_mb_per_frame"] > 0
 
 
 def test_rig_machinery_row():
     out = _run("--rig", "3", "--device-resident", "2", "--readback", "fence")
     assert out["metric"] == "streaming_fps_rig3_128x96_machinery"
     assert out["frames_measured"] == 10
-    assert out["device_attached_extrapolation"]["payload_mb_per_frame"] > 0
+    assert out["payload_mb_per_frame"] > 0
 
 
 def test_feeder_only_row():

@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from pointcloud_depthfusion_tpu.ops import voxel as V
 
@@ -67,89 +68,56 @@ def test_regularize_norm():
     assert reg[0, 0] > 0 and reg[1, 1] > 0
 
 
-def test_sorted_build_matches_scatter(rng):
-    """The Pallas segment-sum build must reproduce the scatter build
-    (identical counts/reps; sums equal up to f32 addition order)."""
-    n = 5000
-    pts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+def _voxel_grid_oracle(pts, val, resolution, table_size):
+    """Sequential numpy build: per-slot count, mean, population covariance
+    and the lowest-index member's voxel coords (the scatter contract)."""
+    coords = np.floor(pts / np.float32(resolution)).astype(np.int32)
+    slots = np.asarray(V.hash_coords(jnp.asarray(coords), table_size))
+    count = np.zeros(table_size)
+    s1 = np.zeros((table_size, 3))
+    s2 = np.zeros((table_size, 3, 3))
+    rep = np.full((table_size, 3), np.iinfo(np.int32).max, np.int64)
+    for i in np.flatnonzero(val):
+        k = slots[i]
+        p = pts[i].astype(np.float64)
+        if count[k] == 0:
+            rep[k] = coords[i]
+        count[k] += 1
+        s1[k] += p
+        s2[k] += np.outer(p, p)
+    safe = np.maximum(count, 1)
+    mean = s1 / safe[:, None]
+    cov = s2 / safe[:, None, None] - mean[:, :, None] * mean[:, None, :]
+    return count, mean, cov, rep
+
+
+@pytest.mark.parametrize("case", ["uniform_4k", "uniform_32k", "collisions",
+                                  "one_voxel", "empty"])
+def test_voxel_build_matches_oracle(case, rng):
+    """The scatter build against the sequential oracle: exact counts and
+    representative coords, statistics to f32 summation error. Covers hash
+    collisions (tiny table), every point in one voxel, and no valid
+    point."""
+    n, res, table = {
+        "uniform_4k": (5000, 0.05, 1 << 12),
+        "uniform_32k": (5000, 0.05, 1 << 15),
+        "collisions": (800, 0.1, 64),
+        "one_voxel": (5000, 10.0, 256),
+        "empty": (800, 0.1, 64),
+    }[case]
+    if case == "one_voxel":
+        pts = (rng.normal(0, 0.01, (n, 3)) + 0.5).astype(np.float32)
+    else:
+        pts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
     val = rng.uniform(size=n) > 0.3
-    pts[~val] = np.nan  # invalid entries may carry garbage
-    for table in (1 << 12, 1 << 15):
-        a = V.build_voxel_grid(
-            jnp.asarray(pts), jnp.asarray(val), 0.05, table, method="scatter"
-        )
-        b = V.build_voxel_grid(
-            jnp.asarray(pts), jnp.asarray(val), 0.05, table, method="sorted"
-        )
-        np.testing.assert_array_equal(np.asarray(a.count), np.asarray(b.count))
-        np.testing.assert_array_equal(np.asarray(a.coords), np.asarray(b.coords))
-        np.testing.assert_allclose(
-            np.asarray(a.mean), np.asarray(b.mean), atol=1e-5
-        )
-        np.testing.assert_allclose(
-            np.asarray(a.cov), np.asarray(b.cov), atol=1e-5
-        )
-
-
-def test_sorted_build_collisions_and_empty(rng):
-    # Tiny table forces hash collisions; both methods must agree exactly on
-    # the merged statistics and the lowest-index representative.
-    n = 800
-    pts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    val = np.ones(n, bool)
-    a = V.build_voxel_grid(jnp.asarray(pts), jnp.asarray(val), 0.1, 64,
-                           method="scatter")
-    b = V.build_voxel_grid(jnp.asarray(pts), jnp.asarray(val), 0.1, 64,
-                           method="sorted")
-    np.testing.assert_array_equal(np.asarray(a.count), np.asarray(b.count))
-    np.testing.assert_array_equal(np.asarray(a.coords), np.asarray(b.coords))
-    # all-invalid input: empty grid, INT32_MAX reps
-    c = V.build_voxel_grid(
-        jnp.asarray(pts), jnp.zeros(n, bool), 0.1, 64, method="sorted"
-    )
-    assert int(c.count.sum()) == 0
-    assert int(c.coords.min()) == np.iinfo(np.int32).max
-
-
-def test_sorted_build_pathological_skew(rng):
-    """Every point in ONE voxel: the single slot's slab spans many kernel
-    chunks; sums and count must still be exact."""
-    n = 5000
-    pts = (rng.normal(0, 0.01, (n, 3)) + 0.5).astype(np.float32)
-    # chunk=1024 => the one slab covers ~5 chunks
-    a = V.build_voxel_grid(jnp.asarray(pts), jnp.ones(n, bool), 10.0, 256,
-                           method="scatter")
-    b = V.build_voxel_grid(jnp.asarray(pts), jnp.ones(n, bool), 10.0, 256,
-                           method="sorted")
-    assert int(b.count.sum()) == n
-    np.testing.assert_array_equal(np.asarray(a.count), np.asarray(b.count))
-    np.testing.assert_allclose(np.asarray(a.mean), np.asarray(b.mean),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(a.cov), np.asarray(b.cov),
-                               atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(a.coords), np.asarray(b.coords))
-
-
-def test_segsum_direct_small():
-    """Direct kernel check: known segment sums + reps on a tiny table."""
-    from pointcloud_depthfusion_tpu.ops.pallas.segsum_pallas import (
-        padded_slots,
-        segsum_sorted,
-    )
-
-    slot = jnp.asarray([3, 0, 3, 7, 0, padded_slots(8)], jnp.int32)
-    vals = jnp.asarray(
-        [[1.0, 10.0], [2.0, 20.0], [3.0, 30.0], [4.0, 40.0], [5.0, 50.0],
-         [99.0, 99.0]],
-        jnp.float32,
-    )
-    sums, rep = segsum_sorted(slot, vals, 8, interpret=True)
-    np.testing.assert_allclose(np.asarray(sums[0]), [7.0, 70.0])
-    np.testing.assert_allclose(np.asarray(sums[3]), [4.0, 40.0])
-    np.testing.assert_allclose(np.asarray(sums[7]), [4.0, 40.0])
-    assert int(rep[0]) == 1 and int(rep[3]) == 0 and int(rep[7]) == 3
-    assert int(rep[1]) == np.iinfo(np.int32).max  # empty slot
-    np.testing.assert_allclose(np.asarray(sums[1]), [0.0, 0.0])
+    if case == "empty":
+        val[:] = False
+    grid = V.build_voxel_grid(jnp.asarray(pts), jnp.asarray(val), res, table)
+    count, mean, cov, rep = _voxel_grid_oracle(pts, val, res, table)
+    np.testing.assert_array_equal(np.asarray(grid.count), count)
+    np.testing.assert_array_equal(np.asarray(grid.coords), rep)
+    np.testing.assert_allclose(np.asarray(grid.mean), mean, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(grid.cov), cov, atol=1e-4)
 
 
 def test_statistical_outlier_removal_flags_sparse_points():
